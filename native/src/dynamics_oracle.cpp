@@ -1,7 +1,7 @@
 // Native dynamics oracle: an INDEPENDENT implementation of the floating-base
 // mass matrix and Coriolis bias used to cross-validate the JAX engine.
 //
-// The JAX engine (quadrupedwholebodycontroller_tpu/ops/dynamics.py) computes
+// The JAX engine (quadrupedwholebodycontroller/ops/dynamics.py) computes
 // M via CoM-Jacobian Gram sums and the bias via virtual work + autodiff
 // velocity-product accelerations.  This oracle uses the classical
 // Featherstone spatial-algebra route instead — CRBA and RNEA in body
@@ -540,7 +540,7 @@ void matmul_tn(int ra, int ca, int cb, const double* A, const double* B, double*
 // ===================== QP assembly oracle ==================================
 // Independent re-derivation of the full WBC QP assembly
 // (reference /root/reference/src/whole_body_controller.cpp:256-320,384-515;
-// JAX implementation quadrupedwholebodycontroller_tpu/control/wbc.py
+// JAX implementation quadrupedwholebodycontroller/control/wbc.py
 // wbc_setup) using only the Featherstone/world-FK machinery above — no
 // shared code with the JAX engine.  Hard-wired to the quadruped QP layout
 // (SURVEY §3.5): nv=18, n=42 vars, m=70 rows, 4 feet.

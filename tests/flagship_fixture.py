@@ -20,16 +20,16 @@ def flagship_inputs(B=8):
     import jax
     import jax.numpy as jnp
 
-    from quadrupedwholebodycontroller_tpu.config import (
+    from quadrupedwholebodycontroller.config import (
         ControllerParams,
         QPSolverParams,
     )
-    from quadrupedwholebodycontroller_tpu.control import wbc
-    from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-    from quadrupedwholebodycontroller_tpu.models.anymal import (
+    from quadrupedwholebodycontroller.control import wbc
+    from quadrupedwholebodycontroller.models import anymal_d_model
+    from quadrupedwholebodycontroller.models.anymal import (
         INITIAL_JOINT_POS,
     )
-    from quadrupedwholebodycontroller_tpu.ops import qp as qpm
+    from quadrupedwholebodycontroller.ops import qp as qpm
 
     dtype = jnp.float32
     model = anymal_d_model(dtype=dtype)

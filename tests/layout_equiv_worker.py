@@ -2,15 +2,14 @@
 
 Runs ONE param-set comparison (both layouts, 5 full cached wbc steps with a
 mid-run contact switch) and prints the max deviations as a JSON line.  Kept
-out of the pytest process on purpose: the comparison compiles several very
-large f64 interpret-mode programs, and this environment's XLA CPU compiler
-segfaults intermittently under heavy accumulated in-process compile load
-(observed at this test's position in the full suite; standalone it always
-passes).  A fresh process per param set keeps the suite immune.
+out of the pytest process on purpose: the comparison compiles several large
+f64 programs, and the XLA CPU compiler has segfaulted intermittently under
+heavy accumulated in-process compile load (observed at this test's
+position in the full suite; standalone it always passes).  A fresh process
+per param set keeps the suite immune.
 
 Usage: python tests/layout_equiv_worker.py <sigma0|sigma_prox|cold2>
 """
-import functools
 import json
 import os
 import sys
@@ -26,18 +25,16 @@ import dataclasses  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
 
-from quadrupedwholebodycontroller_tpu.config import (  # noqa: E402
+from quadrupedwholebodycontroller.config import (  # noqa: E402
     ControllerParams,
     QPSolverParams,
 )
-from quadrupedwholebodycontroller_tpu.control import wbc  # noqa: E402
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model  # noqa: E402
-from quadrupedwholebodycontroller_tpu.models.anymal import (  # noqa: E402
+from quadrupedwholebodycontroller.control import wbc  # noqa: E402
+from quadrupedwholebodycontroller.models import anymal_d_model  # noqa: E402
+from quadrupedwholebodycontroller.models.anymal import (  # noqa: E402
     INITIAL_JOINT_POS,
 )
-from quadrupedwholebodycontroller_tpu.ops import qp as qpm  # noqa: E402
-import quadrupedwholebodycontroller_tpu.ops.pallas.polish_kernel as pk  # noqa: E402
-import quadrupedwholebodycontroller_tpu.ops.pallas.qp_kernel as qk  # noqa: E402
+from quadrupedwholebodycontroller.ops import qp as qpm  # noqa: E402
 
 PARAM_SETS = {
     "sigma0": QPSolverParams(sigma=0.0),
@@ -50,13 +47,6 @@ PARAM_SETS = {
 
 def main():
     params = PARAM_SETS[sys.argv[1]]
-    qk.admm_zy_iterations_res = functools.partial(
-        qk.admm_zy_iterations_res, interpret=True
-    )
-    qk.admm_iterations_res = functools.partial(
-        qk.admm_iterations_res, interpret=True
-    )
-    pk.polish_solve = functools.partial(pk.polish_solve, interpret=True)
 
     dtype = jnp.float64
     model = anymal_d_model(dtype=dtype)
@@ -94,7 +84,7 @@ def main():
         for i in range(5):
             ref = ref_sw if i >= 3 else ref0
             out, carry, cache = wbc.wbc_step_batched(
-                model, cp, p, obs, ref, carry, True, "pallas", cache, valid
+                model, cp, p, obs, ref, carry, True, "cached", cache, valid
             )
             valid = True
             outs.append(out)

@@ -9,6 +9,7 @@ import sys
 from contextlib import redirect_stdout
 
 import numpy as np
+import pytest
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 sys.path.insert(0, REPO)
@@ -35,13 +36,17 @@ def test_replay_trajectory_integrity():
 
 
 def test_bench_json_contract(monkeypatch):
+    """The explicit CPU rehearsal runs the cached chain end to end and
+    stamps the device; its line says platform "cpu"."""
     monkeypatch.setenv("QWBC_BENCH_BATCH", "2")
     monkeypatch.setenv("QWBC_BENCH_REPS", "1")
+    monkeypatch.setenv("QWBC_BENCH_DIVERSE_BATCH", "4")
+    monkeypatch.setenv("QWBC_BENCH_B8192", "0")
     import bench
 
     buf = io.StringIO()
     with redirect_stdout(buf):
-        bench.main()
+        bench.main(["--cpu-rehearsal"])
     line = [l for l in buf.getvalue().splitlines() if l.startswith("{")][-1]
     out = json.loads(line)
     assert out["metric"] == "wbc_qp_solves_per_s"
@@ -49,3 +54,33 @@ def test_bench_json_contract(monkeypatch):
     assert out["mode"] == "evolving"
     assert out["value"] > 0 and np.isfinite(out["vs_baseline"])
     assert np.isfinite(out["max_kkt"]) and out["max_kkt"] < 0.1
+    assert out["platform"] == "cpu" and out["device_kind"] == "cpu"
+    assert out["device_count"] >= 1 and out["card"] is None
+    assert out["diverse_batch"] == 4 and out["diverse_flagged_max"] == 0
+    assert out["finite"] and out["diverse_finite"]
+
+
+def test_bench_refuses_without_gpu():
+    """A plain run on the CPU is no measurement: bench.py exits non-zero
+    and prints no result line."""
+    import bench
+
+    buf = io.StringIO()
+    with redirect_stdout(buf), pytest.raises(SystemExit) as exc:
+        bench.main([])
+    assert exc.value.code not in (0, None)
+    assert not [l for l in buf.getvalue().splitlines() if l.startswith("{")]
+
+
+def test_device_stamp_and_card_off_gpu(monkeypatch):
+    """The stamp every measurement carries: platform / kind / count as JAX
+    reports them, and no card line without nvidia-smi."""
+    from quadrupedwholebodycontroller.runtime import accel
+
+    stamp = accel.device_stamp()
+    assert stamp["platform"] == "cpu" and stamp["device_count"] >= 1
+    assert stamp["card"] is None
+    monkeypatch.setenv("PATH", "")
+    assert accel.card() is None
+    # the CPU backend keeps no persistent compile cache
+    assert accel.enable_compile_cache() is None

@@ -3,11 +3,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.ops import centroidal as C
-from quadrupedwholebodycontroller_tpu.ops import dynamics as D
-from quadrupedwholebodycontroller_tpu.ops import kinematics as K
-from quadrupedwholebodycontroller_tpu.ops import spatial
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.ops import centroidal as C
+from quadrupedwholebodycontroller.ops import dynamics as D
+from quadrupedwholebodycontroller.ops import kinematics as K
+from quadrupedwholebodycontroller.ops import spatial
 
 
 @pytest.fixture(scope="module")

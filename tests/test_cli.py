@@ -4,7 +4,7 @@ import sys
 
 import numpy as np
 
-from quadrupedwholebodycontroller_tpu.cli import main as cli
+from quadrupedwholebodycontroller.cli import main as cli
 
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 

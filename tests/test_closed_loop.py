@@ -7,15 +7,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadrupedwholebodycontroller_tpu.config import (
+from quadrupedwholebodycontroller.config import (
     GRAVITY,
     ControllerParams,
     PlannerParams,
     QPSolverParams,
 )
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.sim import SimParams, closed_loop_rollout
-from quadrupedwholebodycontroller_tpu.sim.rollout import init_rollout_carry
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.sim import SimParams, closed_loop_rollout
+from quadrupedwholebodycontroller.sim.rollout import init_rollout_carry
 
 
 def run(dtype, T, walk_after=None, iters=100):
@@ -64,7 +64,8 @@ def test_walking_f64():
 
 
 def test_standing_f32():
-    """The TPU dtype: f32 closed loop must remain stable and regulated."""
+    """The accelerator dtype: f32 closed loop must remain stable and
+    regulated."""
     tr = run(jnp.float32, 300)
     assert np.all(np.isfinite(tr.com_pos))
     assert 0.46 < tr.com_pos[-1, 2] < 0.52
@@ -99,8 +100,8 @@ def test_batched_scenarios():
 
 def test_batched_rollout_matches_vmapped():
     """batched_rollout (xla QP backend) must reproduce vmap(closed_loop_rollout)."""
-    from quadrupedwholebodycontroller_tpu.planner import gait
-    from quadrupedwholebodycontroller_tpu.sim.rollout import batched_rollout
+    from quadrupedwholebodycontroller.planner import gait
+    from quadrupedwholebodycontroller.sim.rollout import batched_rollout
 
     dtype = jnp.float64
     model = anymal_d_model(dtype=dtype)

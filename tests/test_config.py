@@ -1,7 +1,7 @@
 """Config loading: reference-format YAML files port verbatim."""
 import os
 
-from quadrupedwholebodycontroller_tpu.config import load_yaml_params
+from quadrupedwholebodycontroller.config import load_yaml_params
 
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 

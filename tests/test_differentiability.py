@@ -8,14 +8,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadrupedwholebodycontroller_tpu.config import (
+from quadrupedwholebodycontroller.config import (
     ControllerParams,
     PlannerParams,
     QPSolverParams,
 )
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.sim import SimParams, closed_loop_rollout
-from quadrupedwholebodycontroller_tpu.sim.rollout import init_rollout_carry
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.sim import SimParams, closed_loop_rollout
+from quadrupedwholebodycontroller.sim.rollout import init_rollout_carry
 
 
 def _make_cost(model, pp, sp, qp, T, dtype):

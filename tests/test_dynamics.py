@@ -3,10 +3,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.ops import dynamics as D
-from quadrupedwholebodycontroller_tpu.ops import kinematics as K
-from quadrupedwholebodycontroller_tpu.ops import spatial
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.ops import dynamics as D
+from quadrupedwholebodycontroller.ops import kinematics as K
+from quadrupedwholebodycontroller.ops import spatial
 
 
 @pytest.fixture(scope="module")
@@ -158,13 +158,13 @@ def test_bias_energy_rate(model, rng):
 def test_jacobian_parts_equivalences(model, rng):
     """The parts-based (never-materialized-J) assembly reproduces the
     J-stack mass matrix, force projection, and body velocities exactly."""
-    from quadrupedwholebodycontroller_tpu.ops import kinematics as K
+    from quadrupedwholebodycontroller.ops import kinematics as K
 
     for _ in range(3):
         R = K.spatial.axis_angle_to_matrix(
             jnp.asarray(rng.normal(size=3) / 3), jnp.asarray(rng.normal())
         ) if hasattr(K, "spatial") else jnp.eye(3)
-        from quadrupedwholebodycontroller_tpu.ops import spatial
+        from quadrupedwholebodycontroller.ops import spatial
         ax = rng.normal(size=3); ax = ax / np.linalg.norm(ax)
         R = spatial.axis_angle_to_matrix(jnp.asarray(ax), jnp.asarray(rng.normal()))
         p = jnp.asarray(rng.normal(size=3))

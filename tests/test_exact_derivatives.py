@@ -5,14 +5,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadrupedwholebodycontroller_tpu.config import (
+from quadrupedwholebodycontroller.config import (
     ControllerParams,
     PlannerParams,
     QPSolverParams,
 )
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.sim import SimParams, closed_loop_rollout
-from quadrupedwholebodycontroller_tpu.sim.rollout import init_rollout_carry
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.sim import SimParams, closed_loop_rollout
+from quadrupedwholebodycontroller.sim.rollout import init_rollout_carry
 
 
 def run(cp, T=500):
@@ -50,15 +50,13 @@ def test_exact_derivatives_walk():
 
 
 def test_exact_epilogue_matches_xla_setup(rng):
-    """The pallas-path exact mode (fused FD kernel + jvp-exact patch
-    epilogue, control/wbc._exact_epilogue_batched) reproduces the vmapped
-    XLA exact wbc_setup: same QP bounds, h_c, and carried tdot_inv (f64
-    interpret mode)."""
-    import functools
-
-    import quadrupedwholebodycontroller_tpu.ops.pallas.setup_kernel as sku
-    from quadrupedwholebodycontroller_tpu.control import wbc
-    from quadrupedwholebodycontroller_tpu.models.anymal import (
+    """The fused-setup exact mode via the epilogue (fused FD setup +
+    jvp-exact patch, control/wbc._exact_epilogue_batched) reproduces the
+    vmapped XLA exact wbc_setup: same QP bounds, h_c, and carried tdot_inv
+    (f64)."""
+    import quadrupedwholebodycontroller.ops.setup_fused as sku
+    from quadrupedwholebodycontroller.control import wbc
+    from quadrupedwholebodycontroller.models.anymal import (
         INITIAL_JOINT_POS,
     )
 
@@ -100,29 +98,24 @@ def test_exact_epilogue_matches_xla_setup(rng):
         lambda o, r, c: wbc.wbc_setup(model, cp, o, r, c, True)
     )(obs, ref, carry)
 
-    orig = sku.setup_batched
-    sku.setup_batched = functools.partial(orig, interpret=True)
-    try:
-        out, _ = wbc.wbc_step_batched(
-            model, cp, QPSolverParams(), obs, ref, carry, True,
-            qp_backend="xla", setup_backend="pallas",
-        )
-        # reproduce the patched setup for the assertions
-        sk = sku.setup_batched(model, cp, obs, ref, carry,
-                               jnp.ones((B,), bool))
-        from quadrupedwholebodycontroller_tpu.ops import qp as qpm_
+    out, _ = wbc.wbc_step_batched(
+        model, cp, QPSolverParams(), obs, ref, carry, True,
+        qp_backend="xla", setup_backend="fused",
+    )
+    # reproduce the patched setup for the assertions
+    sk = sku.setup_batched(model, cp, obs, ref, carry,
+                           jnp.ones((B,), bool))
+    from quadrupedwholebodycontroller.ops import qp as qpm_
 
-        setup = wbc.WBCSetup(
-            qp_data=qpm_.QPData(H=sk["H"], g=sk["g"], A=sk["A"],
-                                l=sk["l"], u=sk["u"]),
-            h_c=sk["h_c"], Mc_jj=sk["Mc_jj"], Jc_st_j=sk["Jc_st_j"],
-            com=sk["com"], current_pose=sk["current_pose"],
-            foot_pos=sk["foot_pos"], carry_updates=sk["carry_updates"],
-        )
-        got, _ = wbc._exact_epilogue_batched(model, cp, obs, carry, setup,
-                                             None)
-    finally:
-        sku.setup_batched = orig
+    setup = wbc.WBCSetup(
+        qp_data=qpm_.QPData(H=sk["H"], g=sk["g"], A=sk["A"],
+                            l=sk["l"], u=sk["u"]),
+        h_c=sk["h_c"], Mc_jj=sk["Mc_jj"], Jc_st_j=sk["Jc_st_j"],
+        com=sk["com"], current_pose=sk["current_pose"],
+        foot_pos=sk["foot_pos"], carry_updates=sk["carry_updates"],
+    )
+    got, _ = wbc._exact_epilogue_batched(model, cp, obs, carry, setup,
+                                         None)
 
     tol = 1e-8
     finite = np.abs(np.asarray(want.qp_data.l)) < 1e19
@@ -137,13 +130,13 @@ def test_exact_epilogue_matches_xla_setup(rng):
 
 
 def test_kernel_exact_mode_matches_xla_setup(rng):
-    """The IN-KERNEL exact mode (ops/pallas/setup_kernel exact_mode=True —
-    the tangent propagation carried through the kernel's own unrolled
-    recursion, VERDICT r3 #2) reproduces the vmapped XLA exact wbc_setup:
-    QP bounds, A, g, h_c, and the carried tdot_inv (f64 interpret mode)."""
-    import quadrupedwholebodycontroller_tpu.ops.pallas.setup_kernel as sku
-    from quadrupedwholebodycontroller_tpu.control import wbc
-    from quadrupedwholebodycontroller_tpu.models.anymal import (
+    """The fused setup's own exact mode (ops/setup_fused exact_mode=True —
+    the tangent propagation carried through the generated unrolled
+    recursion) reproduces the vmapped XLA exact wbc_setup: QP bounds, A,
+    g, h_c, and the carried tdot_inv (f64)."""
+    import quadrupedwholebodycontroller.ops.setup_fused as sku
+    from quadrupedwholebodycontroller.control import wbc
+    from quadrupedwholebodycontroller.models.anymal import (
         INITIAL_JOINT_POS,
     )
 
@@ -181,8 +174,7 @@ def test_kernel_exact_mode_matches_xla_setup(rng):
         lambda o, r, c: wbc.wbc_setup(model, cp, o, r, c, True)
     )(obs, ref, carry)
     sk = sku.setup_batched(
-        model, cp, obs, ref, carry, jnp.ones((B,), bool),
-        interpret=True, exact_mode=True,
+        model, cp, obs, ref, carry, jnp.ones((B,), bool), exact_mode=True,
     )
 
     tol = 1e-8

@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadrupedwholebodycontroller_tpu.models.robot_model import RobotModel
-from quadrupedwholebodycontroller_tpu.ops import dynamics as D
-from quadrupedwholebodycontroller_tpu.ops import kinematics as K
-from quadrupedwholebodycontroller_tpu.ops import spatial
+from quadrupedwholebodycontroller.models.robot_model import RobotModel
+from quadrupedwholebodycontroller.ops import dynamics as D
+from quadrupedwholebodycontroller.ops import kinematics as K
+from quadrupedwholebodycontroller.ops import spatial
 
 URDF = os.path.join(os.path.dirname(__file__), "data", "toy_quadruped.urdf")
 JOINTS = ("FL_hip", "FL_knee", "FR_hip", "FR_knee",
@@ -63,7 +63,7 @@ def test_dynamics_identities(model, rng):
 
 
 def test_cpp_oracle_agrees(model, rng):
-    from quadrupedwholebodycontroller_tpu.runtime import native
+    from quadrupedwholebodycontroller.runtime import native
 
     if native.load() is None:
         pytest.skip("native toolchain unavailable")

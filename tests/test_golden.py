@@ -11,14 +11,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadrupedwholebodycontroller_tpu.config import (
+from quadrupedwholebodycontroller.config import (
     ControllerParams,
     PlannerParams,
     QPSolverParams,
 )
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.sim import SimParams, closed_loop_rollout
-from quadrupedwholebodycontroller_tpu.sim.rollout import (
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.sim import SimParams, closed_loop_rollout
+from quadrupedwholebodycontroller.sim.rollout import (
     init_rollout_carry,
     trot_rollout,
 )
@@ -47,7 +47,7 @@ def run(T, walk_after=None, gait="walk", cmds=None, exact_derivatives=False):
     else:
         cmds = jnp.asarray(cmds, dtype)
     if gait == "trot":
-        from quadrupedwholebodycontroller_tpu.planner.trot import (
+        from quadrupedwholebodycontroller.planner.trot import (
             TrotParams,
             init_trot_state,
         )

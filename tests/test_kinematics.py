@@ -3,13 +3,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.models.anymal import (
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.models.anymal import (
     INITIAL_BASE_HEIGHT,
     INITIAL_JOINT_POS,
 )
-from quadrupedwholebodycontroller_tpu.ops import kinematics as K
-from quadrupedwholebodycontroller_tpu.ops import spatial
+from quadrupedwholebodycontroller.ops import kinematics as K
+from quadrupedwholebodycontroller.ops import spatial
 
 
 @pytest.fixture(scope="module")

@@ -2,7 +2,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from quadrupedwholebodycontroller_tpu.ops import linalg as L
+from quadrupedwholebodycontroller.ops import linalg as L
 
 
 def spd(rng, n, cond=1e4):
@@ -87,10 +87,10 @@ def test_spd_inv18_mass_matrix(rng):
     import jax
     import jax.numpy as jnp_
 
-    from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-    from quadrupedwholebodycontroller_tpu.models.anymal import INITIAL_JOINT_POS
-    from quadrupedwholebodycontroller_tpu.ops import dynamics as D
-    from quadrupedwholebodycontroller_tpu.ops import kinematics as K
+    from quadrupedwholebodycontroller.models import anymal_d_model
+    from quadrupedwholebodycontroller.models.anymal import INITIAL_JOINT_POS
+    from quadrupedwholebodycontroller.ops import dynamics as D
+    from quadrupedwholebodycontroller.ops import kinematics as K
 
     model = anymal_d_model(dtype=jnp_.float64)
     B = 4
@@ -117,7 +117,7 @@ def test_ns_inverse_warm_shared_matches():
     starts; rejected warms fall back to a finite, safe X0."""
     import numpy as np
 
-    from quadrupedwholebodycontroller_tpu.ops.linalg import (
+    from quadrupedwholebodycontroller.ops.linalg import (
         ns_inverse,
         ns_inverse_warm_shared,
     )
@@ -146,7 +146,7 @@ def test_ns_inverse_bm_matches_batch_major():
     to roundoff-reassociation, checked tight)."""
     import numpy as np
 
-    from quadrupedwholebodycontroller_tpu.ops.linalg import (
+    from quadrupedwholebodycontroller.ops.linalg import (
         ns_inverse,
         ns_inverse_bm,
         ns_inverse_warm_shared,

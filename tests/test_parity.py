@@ -19,17 +19,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadrupedwholebodycontroller_tpu.config import (
+from quadrupedwholebodycontroller.config import (
     ControllerParams,
     PlannerParams,
     QPSolverParams,
 )
-from quadrupedwholebodycontroller_tpu.control import wbc
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.ops import qp as qpm
-from quadrupedwholebodycontroller_tpu.planner import gait
-from quadrupedwholebodycontroller_tpu.sim import SimParams, world
-from quadrupedwholebodycontroller_tpu.sim.rollout import init_rollout_carry
+from quadrupedwholebodycontroller.control import wbc
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.ops import qp as qpm
+from quadrupedwholebodycontroller.planner import gait
+from quadrupedwholebodycontroller.sim import SimParams, world
+from quadrupedwholebodycontroller.sim.rollout import init_rollout_carry
 
 
 def scipy_qp(data):

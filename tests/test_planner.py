@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadrupedwholebodycontroller_tpu.config import PlannerParams
-from quadrupedwholebodycontroller_tpu.planner import gait
+from quadrupedwholebodycontroller.config import PlannerParams
+from quadrupedwholebodycontroller.planner import gait
 
 
 @pytest.fixture(scope="module")
@@ -25,7 +25,7 @@ def run_ticks(pp, n, cmd, state=None):
 
 
 def test_quintic_boundary_conditions():
-    import quadrupedwholebodycontroller_tpu.planner.gait as g
+    import quadrupedwholebodycontroller.planner.gait as g
 
     T = 0.8
     vi, vf = 0.0, 0.4
@@ -39,7 +39,7 @@ def test_quintic_boundary_conditions():
 
 
 def test_bezier_endpoints_and_peak():
-    import quadrupedwholebodycontroller_tpu.planner.gait as g
+    import quadrupedwholebodycontroller.planner.gait as g
 
     pi = jnp.array([0.0, 0.0, 0.0])
     pf = jnp.array([0.1, 0.0, 0.0])

@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadrupedwholebodycontroller_tpu.config import QPSolverParams
-from quadrupedwholebodycontroller_tpu.ops import qp
+from quadrupedwholebodycontroller.config import QPSolverParams
+from quadrupedwholebodycontroller.ops import qp
 
 
 def random_qp(rng, n=8, m=12, n_eq=2, dtype=jnp.float64):
@@ -254,7 +254,7 @@ def test_compact_drop_round_matches_full(rng):
     unchanged scenarios bitwise alone."""
     import dataclasses
 
-    from quadrupedwholebodycontroller_tpu.control.wbc import _wbc_polish_hinv
+    from quadrupedwholebodycontroller.control.wbc import _wbc_polish_hinv
 
     dtype = jnp.float32
     B, n, m = 8, 8, 12
@@ -275,10 +275,10 @@ def test_compact_drop_round_matches_full(rng):
     cache_f = qp.make_cache(B, n, m, full, dtype)
     cache_c = qp.make_cache(B, n, m, comp, dtype)
     st_f, inf_f, _ = qp.solve_batched(
-        data, warm, full, backend="pallas", cache=cache_f, use_warm=False
+        data, warm, full, backend="cached", cache=cache_f, use_warm=False
     )
     st_c, inf_c, _ = qp.solve_batched(
-        data, warm, comp, backend="pallas", cache=cache_c, use_warm=False
+        data, warm, comp, backend="cached", cache=cache_c, use_warm=False
     )
     np.testing.assert_allclose(
         np.asarray(st_c.x), np.asarray(st_f.x), atol=1e-5
@@ -322,7 +322,7 @@ def test_drop_fire_tol_semantics(rng):
     def run(p):
         cache = qp.make_cache(B, n, m, p, dtype)
         return qp.solve_batched(
-            data, warm, p, backend="pallas", cache=cache, use_warm=False
+            data, warm, p, backend="cached", cache=cache, use_warm=False
         )
 
     st0, inf0, _ = run(base)  # fire bar off (round-4 behavior)
@@ -365,10 +365,10 @@ def test_cond_hoist_bitwise(rng):
         p = dataclasses.replace(base, cond_hoist=ch)
         cache = qp.make_cache(B, n, m, p, dtype)
         st1, inf1, cache = qp.solve_batched(
-            data, warm, p, backend="pallas", cache=cache, use_warm=False
+            data, warm, p, backend="cached", cache=cache, use_warm=False
         )
         st2, inf2, cache2 = qp.solve_batched(
-            data, st1, p, backend="pallas", cache=cache, use_warm=uw
+            data, st1, p, backend="cached", cache=cache, use_warm=uw
         )
         outs[ch] = (st1, inf1, st2, inf2, cache2)
     for ch in (1, 2):
@@ -405,7 +405,7 @@ def test_drop_warm_iters_is_guarded_not_equivalent():
     def run(p):
         cache = qp.make_cache(B, n, m, p, dtype)
         return qp.solve_batched(
-            data, warm, p, backend="pallas", cache=cache, use_warm=False
+            data, warm, p, backend="cached", cache=cache, use_warm=False
         )
 
     st_c, inf_c, _ = run(base)
@@ -451,7 +451,7 @@ def test_rescue_round2_compact_holds_threshold(rng):
     def run(p):
         cache = qp.make_cache(B, n, m, p, dtype)
         return qp.solve_batched(
-            data, warm, p, backend="pallas", cache=cache, use_warm=False
+            data, warm, p, backend="cached", cache=cache, use_warm=False
         )
 
     st_f, inf_f, _ = run(full)

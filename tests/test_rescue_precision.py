@@ -3,8 +3,8 @@ refinement, and per-scenario warm-cache gating.
 
 The reference analogues: qpOASES `setToReliable` (the rescue,
 whole_body_controller.cpp:519), all-double arithmetic (the compensated
-refinement — f64 hangs at compile on the target TPU stack, so error-free
-f32 transformations are the precision lever), and per-problem hotstart
+refinement — error-free f32 transformations are the precision lever at
+the accelerator's working precision), and per-problem hotstart
 (the per-scenario gate, cpp:529-533)."""
 import dataclasses
 
@@ -12,11 +12,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadrupedwholebodycontroller_tpu.config import QPSolverParams
-from quadrupedwholebodycontroller_tpu.ops import compensated as comp
-from quadrupedwholebodycontroller_tpu.ops import qp as qpm
+from quadrupedwholebodycontroller.config import QPSolverParams
+from quadrupedwholebodycontroller.ops import compensated as comp
+from quadrupedwholebodycontroller.ops import qp as qpm
 
-from tests.test_pallas_qp import _patch_interpret, make_batch
+from tests.test_pallas_qp import make_batch
 
 
 def test_comp_residual_beats_plain_f32(rng):
@@ -137,90 +137,82 @@ def test_per_scenario_warm_gate_matches_scalar_paths(rng):
     """Mixed warm mask == scalar-warm result on warm rows and scalar-cold
     result on cold rows (the per-scenario gate composes exactly from the
     two batch-level paths; kernels are per-scenario independent)."""
-    restore = _patch_interpret()
-    try:
-        B, n, m = 8, 8, 12
-        dtype = jnp.float32
-        data = make_batch(rng, B, n, m)
-        warm0 = jax.tree.map(
-            lambda x: jnp.stack([x] * B), qpm.QPState.zeros(n, m, dtype)
-        )
-        p = QPSolverParams(
-            sigma=0.0, iterations=30, cold_iterations=60,
-            rescue_threshold=0.0, cold_batch=3, ns_warm_iters=2,
-            ns_warm_iters_polish=0,
-        )
-        cache0 = qpm.QPCache.zeros(B, n, m, dtype)
-        # fill the cache with a cold pass
-        st0, _, cache = qpm.solve_batched(
-            data, warm0, p, backend="pallas", cache=cache0,
-            use_warm=jnp.zeros((B,), bool),
-        )
-        # drift the problems slightly (the 400 Hz shape)
-        data2 = data._replace(
-            g=data.g * 1.001, l=data.l * 0.999, u=data.u * 1.001
-        )
-        cold_rows = jnp.zeros((B,), bool).at[2].set(True).at[5].set(True)
-        mask = ~cold_rows
-        st_mix, inf_mix, cache_mix = qpm.solve_batched(
-            data2, st0, p, backend="pallas", cache=cache, use_warm=mask
-        )
-        st_warm, _, cache_warm = qpm.solve_batched(
-            data2, st0, p, backend="pallas", cache=cache, use_warm=True
-        )
-        st_cold, _, cache_cold = qpm.solve_batched(
-            data2, st0, p, backend="pallas", cache=cache, use_warm=False
-        )
-        wr = np.asarray(~cold_rows)
-        assert np.allclose(np.asarray(st_mix.x)[wr],
-                           np.asarray(st_warm.x)[wr], atol=1e-6)
-        assert np.allclose(np.asarray(st_mix.x)[~wr],
-                           np.asarray(st_cold.x)[~wr], atol=1e-5)
-        # the updated cache rows follow the same split
-        assert np.allclose(np.asarray(cache_mix.kinv)[wr],
-                           np.asarray(cache_warm.kinv)[wr], atol=1e-6)
-        assert np.allclose(np.asarray(cache_mix.kinv)[~wr],
-                           np.asarray(cache_cold.kinv)[~wr], atol=1e-5)
-        # overflow: more cold rows than cold_batch -> full-batch cold
-        many_cold = jnp.ones((B,), bool).at[0].set(False).at[1].set(False) \
-            .at[2].set(False).at[3].set(False)
-        st_of, _, _ = qpm.solve_batched(
-            data2, st0, p, backend="pallas", cache=cache, use_warm=~many_cold
-        )
-        assert np.allclose(np.asarray(st_of.x), np.asarray(st_cold.x),
-                           atol=1e-6)
-    finally:
-        restore()
+    B, n, m = 8, 8, 12
+    dtype = jnp.float32
+    data = make_batch(rng, B, n, m)
+    warm0 = jax.tree.map(
+        lambda x: jnp.stack([x] * B), qpm.QPState.zeros(n, m, dtype)
+    )
+    p = QPSolverParams(
+        sigma=0.0, iterations=30, cold_iterations=60,
+        rescue_threshold=0.0, cold_batch=3, ns_warm_iters=2,
+        ns_warm_iters_polish=0,
+    )
+    cache0 = qpm.QPCache.zeros(B, n, m, dtype)
+    # fill the cache with a cold pass
+    st0, _, cache = qpm.solve_batched(
+        data, warm0, p, backend="cached", cache=cache0,
+        use_warm=jnp.zeros((B,), bool),
+    )
+    # drift the problems slightly (the 400 Hz shape)
+    data2 = data._replace(
+        g=data.g * 1.001, l=data.l * 0.999, u=data.u * 1.001
+    )
+    cold_rows = jnp.zeros((B,), bool).at[2].set(True).at[5].set(True)
+    mask = ~cold_rows
+    st_mix, inf_mix, cache_mix = qpm.solve_batched(
+        data2, st0, p, backend="cached", cache=cache, use_warm=mask
+    )
+    st_warm, _, cache_warm = qpm.solve_batched(
+        data2, st0, p, backend="cached", cache=cache, use_warm=True
+    )
+    st_cold, _, cache_cold = qpm.solve_batched(
+        data2, st0, p, backend="cached", cache=cache, use_warm=False
+    )
+    wr = np.asarray(~cold_rows)
+    assert np.allclose(np.asarray(st_mix.x)[wr],
+                       np.asarray(st_warm.x)[wr], atol=1e-6)
+    assert np.allclose(np.asarray(st_mix.x)[~wr],
+                       np.asarray(st_cold.x)[~wr], atol=1e-5)
+    # the updated cache rows follow the same split
+    assert np.allclose(np.asarray(cache_mix.kinv)[wr],
+                       np.asarray(cache_warm.kinv)[wr], atol=1e-6)
+    assert np.allclose(np.asarray(cache_mix.kinv)[~wr],
+                       np.asarray(cache_cold.kinv)[~wr], atol=1e-5)
+    # overflow: more cold rows than cold_batch -> full-batch cold
+    many_cold = jnp.ones((B,), bool).at[0].set(False).at[1].set(False) \
+        .at[2].set(False).at[3].set(False)
+    st_of, _, _ = qpm.solve_batched(
+        data2, st0, p, backend="cached", cache=cache, use_warm=~many_cold
+    )
+    assert np.allclose(np.asarray(st_of.x), np.asarray(st_cold.x),
+                       atol=1e-6)
 
 
 def test_cold_batch_zero_restores_batch_gate(rng):
     """cold_batch=0 with a per-scenario mask reduces to the scalar
     all-of-batch gate (the pre-round-3 behavior)."""
-    restore = _patch_interpret()
-    try:
-        B, n, m = 6, 8, 12
-        dtype = jnp.float32
-        data = make_batch(rng, B, n, m)
-        warm0 = jax.tree.map(
-            lambda x: jnp.stack([x] * B), qpm.QPState.zeros(n, m, dtype)
-        )
-        p = QPSolverParams(sigma=0.0, iterations=20, cold_iterations=40,
-                           rescue_threshold=0.0, cold_batch=0)
-        cache = qpm.QPCache.zeros(B, n, m, dtype)
-        st0, _, cache = qpm.solve_batched(
-            data, warm0, p, backend="pallas", cache=cache,
-            use_warm=jnp.zeros((B,), bool),
-        )
-        mask = jnp.ones((B,), bool).at[1].set(False)  # any False -> all cold
-        st_m, _, _ = qpm.solve_batched(
-            data, st0, p, backend="pallas", cache=cache, use_warm=mask
-        )
-        st_c, _, _ = qpm.solve_batched(
-            data, st0, p, backend="pallas", cache=cache, use_warm=False
-        )
-        assert np.allclose(np.asarray(st_m.x), np.asarray(st_c.x), atol=0)
-    finally:
-        restore()
+    B, n, m = 6, 8, 12
+    dtype = jnp.float32
+    data = make_batch(rng, B, n, m)
+    warm0 = jax.tree.map(
+        lambda x: jnp.stack([x] * B), qpm.QPState.zeros(n, m, dtype)
+    )
+    p = QPSolverParams(sigma=0.0, iterations=20, cold_iterations=40,
+                       rescue_threshold=0.0, cold_batch=0)
+    cache = qpm.QPCache.zeros(B, n, m, dtype)
+    st0, _, cache = qpm.solve_batched(
+        data, warm0, p, backend="cached", cache=cache,
+        use_warm=jnp.zeros((B,), bool),
+    )
+    mask = jnp.ones((B,), bool).at[1].set(False)  # any False -> all cold
+    st_m, _, _ = qpm.solve_batched(
+        data, st0, p, backend="cached", cache=cache, use_warm=mask
+    )
+    st_c, _, _ = qpm.solve_batched(
+        data, st0, p, backend="cached", cache=cache, use_warm=False
+    )
+    assert np.allclose(np.asarray(st_m.x), np.asarray(st_c.x), atol=0)
 
 
 def test_cache_gate_fires_on_switch_edge_only(rng, monkeypatch):
@@ -231,10 +223,10 @@ def test_cache_gate_fires_on_switch_edge_only(rng, monkeypatch):
     import jax
     import jax.numpy as jnp
 
-    from quadrupedwholebodycontroller_tpu.config import ControllerParams
-    from quadrupedwholebodycontroller_tpu.control import wbc
-    from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-    from quadrupedwholebodycontroller_tpu.models.anymal import (
+    from quadrupedwholebodycontroller.config import ControllerParams
+    from quadrupedwholebodycontroller.control import wbc
+    from quadrupedwholebodycontroller.models import anymal_d_model
+    from quadrupedwholebodycontroller.models.anymal import (
         INITIAL_JOINT_POS,
     )
 
@@ -247,46 +239,42 @@ def test_cache_gate_fires_on_switch_edge_only(rng, monkeypatch):
         return orig(data, warm, params, backend, cache=cache,
                     use_warm=use_warm, **kw)
 
-    restore = _patch_interpret()
     monkeypatch.setattr(wbc.qp, "solve_batched", spy)
-    try:
-        dtype = jnp.float32
-        model = anymal_d_model(dtype=dtype)
-        cp = ControllerParams()
-        p = QPSolverParams(sigma=0.0, cold_batch=2, rescue_threshold=0.0)
-        B = 3
-        obs = wbc.RobotObservation(
-            base_R=jnp.broadcast_to(jnp.eye(3, dtype=dtype), (B, 3, 3)),
-            base_p=jnp.tile(jnp.array([0.0, 0.0, 0.55], dtype), (B, 1)),
-            base_vel=jnp.zeros((B, 6), dtype),
-            q=jnp.tile(jnp.asarray(INITIAL_JOINT_POS, dtype), (B, 1)),
-            qd=jnp.zeros((B, 12), dtype),
-        )
-        ref = jax.tree.map(
-            lambda x: jnp.stack([x] * B), wbc.Reference.standing(cp, dtype)
-        )
-        carry = jax.tree.map(lambda x: jnp.stack([x] * B),
-                             wbc.init_carry(dtype))
-        cache = qpm.make_cache(B, 42, 70, p, dtype)
-        # step 1: cold (cache invalid)
-        _, carry, cache = wbc.wbc_step_batched(
-            model, cp, p, obs, ref, carry, True, "pallas", cache, False)
-        # step 2: warm everywhere
-        _, carry, cache = wbc.wbc_step_batched(
-            model, cp, p, obs, ref, carry, True, "pallas", cache, True)
-        # step 3: scenario 0 lifts a leg (switch EDGE, new reference)
-        ref_sw = ref._replace(
-            contacts=ref.contacts.at[0, 1].set(0.0))
-        _, carry, cache = wbc.wbc_step_batched(
-            model, cp, p, obs, ref_sw, carry, True, "pallas", cache, True)
-        # step 4: no new reference (held switch_flag, no edge)
-        _, carry, cache = wbc.wbc_step_batched(
-            model, cp, p, obs, ref_sw, carry, False, "pallas", cache, True)
-        assert not captured[0].any()                      # all cold
-        assert captured[1].all()                          # all warm
-        assert list(captured[2]) == [False, True, True]   # edge only
-        assert captured[3].all()                          # held != edge
-        # the held flag is still up for scenario 0 at step 4 (FD zeroing)
-        assert bool(carry.switch_flag[0])
-    finally:
-        restore()
+    dtype = jnp.float32
+    model = anymal_d_model(dtype=dtype)
+    cp = ControllerParams()
+    p = QPSolverParams(sigma=0.0, cold_batch=2, rescue_threshold=0.0)
+    B = 3
+    obs = wbc.RobotObservation(
+        base_R=jnp.broadcast_to(jnp.eye(3, dtype=dtype), (B, 3, 3)),
+        base_p=jnp.tile(jnp.array([0.0, 0.0, 0.55], dtype), (B, 1)),
+        base_vel=jnp.zeros((B, 6), dtype),
+        q=jnp.tile(jnp.asarray(INITIAL_JOINT_POS, dtype), (B, 1)),
+        qd=jnp.zeros((B, 12), dtype),
+    )
+    ref = jax.tree.map(
+        lambda x: jnp.stack([x] * B), wbc.Reference.standing(cp, dtype)
+    )
+    carry = jax.tree.map(lambda x: jnp.stack([x] * B),
+                         wbc.init_carry(dtype))
+    cache = qpm.make_cache(B, 42, 70, p, dtype)
+    # step 1: cold (cache invalid)
+    _, carry, cache = wbc.wbc_step_batched(
+        model, cp, p, obs, ref, carry, True, "cached", cache, False)
+    # step 2: warm everywhere
+    _, carry, cache = wbc.wbc_step_batched(
+        model, cp, p, obs, ref, carry, True, "cached", cache, True)
+    # step 3: scenario 0 lifts a leg (switch EDGE, new reference)
+    ref_sw = ref._replace(
+        contacts=ref.contacts.at[0, 1].set(0.0))
+    _, carry, cache = wbc.wbc_step_batched(
+        model, cp, p, obs, ref_sw, carry, True, "cached", cache, True)
+    # step 4: no new reference (held switch_flag, no edge)
+    _, carry, cache = wbc.wbc_step_batched(
+        model, cp, p, obs, ref_sw, carry, False, "cached", cache, True)
+    assert not captured[0].any()                      # all cold
+    assert captured[1].all()                          # all warm
+    assert list(captured[2]) == [False, True, True]   # edge only
+    assert captured[3].all()                          # held != edge
+    # the held flag is still up for scenario 0 at step 4 (FD zeroing)
+    assert bool(carry.switch_flag[0])

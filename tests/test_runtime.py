@@ -3,15 +3,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadrupedwholebodycontroller_tpu.config import (
+from quadrupedwholebodycontroller.config import (
     ControllerParams,
     PlannerParams,
     QPSolverParams,
 )
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.runtime import checkpoint
-from quadrupedwholebodycontroller_tpu.sim import SimParams
-from quadrupedwholebodycontroller_tpu.sim.rollout import (
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.runtime import checkpoint
+from quadrupedwholebodycontroller.sim import SimParams
+from quadrupedwholebodycontroller.sim.rollout import (
     closed_loop_rollout,
     init_rollout_carry,
 )

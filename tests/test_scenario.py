@@ -3,20 +3,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadrupedwholebodycontroller_tpu.config import (
+from quadrupedwholebodycontroller.config import (
     ControllerParams,
     PlannerParams,
     QPSolverParams,
 )
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.ops import dynamics as D
-from quadrupedwholebodycontroller_tpu.ops import kinematics as K
-from quadrupedwholebodycontroller_tpu.sim import SimParams
-from quadrupedwholebodycontroller_tpu.sim.rollout import (
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.ops import dynamics as D
+from quadrupedwholebodycontroller.ops import kinematics as K
+from quadrupedwholebodycontroller.sim import SimParams
+from quadrupedwholebodycontroller.sim.rollout import (
     closed_loop_rollout,
     init_rollout_carry,
 )
-from quadrupedwholebodycontroller_tpu.sim.scenario import Scenario, apply_payload
+from quadrupedwholebodycontroller.sim.scenario import Scenario, apply_payload
 
 
 def test_apply_payload_mass_properties():

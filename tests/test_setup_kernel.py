@@ -1,27 +1,27 @@
-"""Fused Pallas setup kernel vs the XLA wbc_setup (interpret mode).
+"""The generated batch-minor setup vs the vmapped XLA wbc_setup.
 
-The kernel (ops/pallas/setup_kernel.py) re-derives the whole setup with
-block algebra (constant T bottom rows, per-leg M_jj sparsity, closed-form
-Mb inverse), so equivalence is pinned in f64 at tight tolerance — any
-algebra mistake shows up far above 1e-9 — plus an f32 sanity pass at the
-TPU's working precision.
+ops/setup_fused.py re-derives the whole setup with block algebra (constant
+T bottom rows, per-leg M_jj sparsity, closed-form Mb inverse), so
+equivalence is pinned in f64 at tight tolerance — any algebra mistake
+shows up far above 1e-9 — plus an f32 sanity pass at the accelerator's
+working precision.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadrupedwholebodycontroller_tpu.config import ControllerParams
-from quadrupedwholebodycontroller_tpu.control import wbc
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.models.anymal import INITIAL_JOINT_POS
-from quadrupedwholebodycontroller_tpu.ops.pallas import setup_kernel
+from quadrupedwholebodycontroller.config import ControllerParams
+from quadrupedwholebodycontroller.control import wbc
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.models.anymal import INITIAL_JOINT_POS
+from quadrupedwholebodycontroller.ops import setup_fused as setup_kernel
 
 
 def _batch(dtype, B=4, seed=0):
     key = jax.random.PRNGKey(seed)
     ks = jax.random.split(key, 6)
-    from quadrupedwholebodycontroller_tpu.ops import spatial
+    from quadrupedwholebodycontroller.ops import spatial
 
     rpy = 0.1 * jax.random.normal(ks[5], (B, 3), dtype)
     obs = wbc.RobotObservation(
@@ -63,9 +63,7 @@ def _run_both(dtype, ref_is_new=True, steps=1):
         )(obs, ref, carry, rn)
         carry = carry._replace(**setup_x.carry_updates)
 
-    out_k = setup_kernel.setup_batched(
-        model, cp, obs, ref, carry, rn, interpret=True
-    )
+    out_k = setup_kernel.setup_batched(model, cp, obs, ref, carry, rn)
     setup_x = jax.vmap(
         lambda o, r, c, n: wbc.wbc_setup(model, cp, o, r, c, n)
     )(obs, ref, carry, rn)
@@ -128,13 +126,11 @@ def test_setup_kernel_matches_xla_f32():
 
 def test_setup_kernel_fused_prepare_f64():
     """The fused-prepare epilogue (qp_params) matches the standalone
-    prepare kernel applied to the plain setup outputs, including the
-    in-kernel switch masking of the warm start."""
-    import functools
-
-    from quadrupedwholebodycontroller_tpu.config import QPSolverParams
-    from quadrupedwholebodycontroller_tpu.ops import qp as qpm
-    from quadrupedwholebodycontroller_tpu.ops.pallas import prepare_kernel
+    prepare stage applied to the plain setup outputs, including the fused
+    switch masking of the warm start."""
+    from quadrupedwholebodycontroller.config import QPSolverParams
+    from quadrupedwholebodycontroller.ops import prepare as prepare_kernel
+    from quadrupedwholebodycontroller.ops import qp as qpm
 
     dtype = jnp.float64
     cp, obs, ref, carry = _batch(dtype)
@@ -159,7 +155,7 @@ def test_setup_kernel_fused_prepare_f64():
     ref2 = ref._replace(contacts=ref.contacts.at[0, 0].set(0.0))
 
     out_k = setup_kernel.setup_batched(
-        model, cp, obs, ref2, carry, rn, interpret=True, qp_params=qp_params
+        model, cp, obs, ref2, carry, rn, qp_params=qp_params
     )
     assert out_k["prepared"] is not None
 
@@ -168,7 +164,7 @@ def test_setup_kernel_fused_prepare_f64():
     )(obs, ref2, carry, rn)
     switch = setup_x2.carry_updates["switch_flag"]
     warm = jax.vmap(wbc._switch_masked_warm)(carry, switch)
-    want = functools.partial(prepare_kernel.prepare_scaled, interpret=True)(
+    want = prepare_kernel.prepare_scaled(
         setup_x2.qp_data.H, setup_x2.qp_data.A, setup_x2.qp_data.g,
         setup_x2.qp_data.l, setup_x2.qp_data.u, warm.x, warm.z, warm.y,
         sweeps=qp_params.scaling_iters, rho0=qp_params.rho,
@@ -197,9 +193,7 @@ def test_setup_kernel_switch_path_f64():
     carry = carry._replace(**setup_x.carry_updates)
     # flip one leg's contact in scenario 0 -> switch there, not elsewhere
     ref2 = ref._replace(contacts=ref.contacts.at[0, 0].set(0.0))
-    out_k = setup_kernel.setup_batched(
-        model, cp, obs, ref2, carry, rn, interpret=True
-    )
+    out_k = setup_kernel.setup_batched(model, cp, obs, ref2, carry, rn)
     setup_x2 = jax.vmap(
         lambda o, r, c, n: wbc.wbc_setup(model, cp, o, r, c, n)
     )(obs, ref2, carry, rn)

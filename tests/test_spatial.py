@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from quadrupedwholebodycontroller_tpu.ops import spatial
+from quadrupedwholebodycontroller.ops import spatial
 
 
 def random_rotation(rng):

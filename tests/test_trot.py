@@ -3,14 +3,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadrupedwholebodycontroller_tpu.config import (
+from quadrupedwholebodycontroller.config import (
     ControllerParams,
     QPSolverParams,
 )
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.planner import trot
-from quadrupedwholebodycontroller_tpu.sim import SimParams
-from quadrupedwholebodycontroller_tpu.sim.rollout import (
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.planner import trot
+from quadrupedwholebodycontroller.sim import SimParams
+from quadrupedwholebodycontroller.sim.rollout import (
     init_rollout_carry,
     trot_rollout,
 )

@@ -3,14 +3,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadrupedwholebodycontroller_tpu.config import (
+from quadrupedwholebodycontroller.config import (
     GRAVITY,
     ControllerParams,
     QPSolverParams,
 )
-from quadrupedwholebodycontroller_tpu.control import wbc
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.models.anymal import INITIAL_JOINT_POS
+from quadrupedwholebodycontroller.control import wbc
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.models.anymal import INITIAL_JOINT_POS
 
 
 @pytest.fixture(scope="module")
@@ -61,7 +61,7 @@ def test_wrench_equality_row(model, cp):
     ref = wbc.Reference.standing(cp, jnp.float64)
     carry = wbc.init_carry(jnp.float64)
     setup = wbc.wbc_setup(model, cp, obs, ref, carry)
-    from quadrupedwholebodycontroller_tpu.ops import qp as qpm
+    from quadrupedwholebodycontroller.ops import qp as qpm
 
     state, info = qpm.solve(setup.qp_data, carry.qp_warm, QPSolverParams())
     resid = np.asarray(setup.qp_data.A @ state.x)[:6] - np.asarray(setup.qp_data.u)[:6]
@@ -143,7 +143,8 @@ def test_jit_and_vmap(model, cp):
 
 
 def test_float32_step(model, cp):
-    """The f32 path (the TPU dtype) must produce torques close to f64."""
+    """The f32 path (the accelerator dtype) must produce torques close to
+    f64."""
     model32 = anymal_d_model(dtype=jnp.float32)
     obs64 = standing_obs(cp)
     obs32 = jax.tree.map(lambda x: x.astype(jnp.float32), obs64)
@@ -162,7 +163,7 @@ def test_float32_step(model, cp):
 
 def test_batched_step_matches_single(model, cp):
     """wbc_step_batched (xla backend) must reproduce vmapped wbc_step."""
-    from quadrupedwholebodycontroller_tpu.config import QPSolverParams
+    from quadrupedwholebodycontroller.config import QPSolverParams
 
     obs = standing_obs(cp)
     ref = wbc.Reference.standing(cp, jnp.float64)
@@ -185,9 +186,9 @@ def test_wbc_polish_hinv_closed_form():
     stance and trot-like contacts."""
     import jax
 
-    from quadrupedwholebodycontroller_tpu.config import QPSolverParams
-    from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-    from quadrupedwholebodycontroller_tpu.models.anymal import INITIAL_JOINT_POS
+    from quadrupedwholebodycontroller.config import QPSolverParams
+    from quadrupedwholebodycontroller.models import anymal_d_model
+    from quadrupedwholebodycontroller.models.anymal import INITIAL_JOINT_POS
 
     dtype = jnp.float64
     model = anymal_d_model(dtype=dtype)
@@ -210,7 +211,7 @@ def test_wbc_polish_hinv_closed_form():
         setup = jax.vmap(lambda o, rr, c: wbc.wbc_setup(model, cp, o, rr, c))(
             obs, r, carry
         )
-        from quadrupedwholebodycontroller_tpu.ops.qp import _blockdiag_dense
+        from quadrupedwholebodycontroller.ops.qp import _blockdiag_dense
 
         H_reg = setup.qp_data.H + qpp.polish_reg * jnp.eye(42, dtype=dtype)
         Hinv = _blockdiag_dense(

@@ -1,12 +1,10 @@
 #!/usr/bin/env python3
-"""Bench-level A/B of the exact-derivatives mode (VERDICT r4 #8).
+"""Bench-level A/B of the exact-derivatives mode.
 
-The in-kernel tangent mode (setup_kernel exact_mode) measured free at the
-profile level (8.37 vs 8.45 ms FD at B=4096, tools/profile_exact_derivs.py);
-this tool answers the endgame question at the HEADLINE level: the evolving
-walking replay at B=8192, FD default vs exact_derivatives=True, in ONE
-process (the only comparison that resolves <1 ms effects on the shared
-chip — CLAUDE.md).
+The fused setup's tangent mode (ops/setup_fused exact_mode) vs the FD
+default at the HEADLINE level: the evolving walking replay at B=8192, FD
+default vs exact_derivatives=True, in ONE process (the only comparison
+that resolves <1 ms effects).
 
     python tools/exact_ab_bench.py [B]
 """
@@ -20,10 +18,10 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from quadrupedwholebodycontroller_tpu.config import ControllerParams, QPSolverParams
-from quadrupedwholebodycontroller_tpu.control import wbc
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.ops import qp as qpm
+from quadrupedwholebodycontroller.config import ControllerParams, QPSolverParams
+from quadrupedwholebodycontroller.control import wbc
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.ops import qp as qpm
 
 from bench import make_evolving_step  # noqa: E402
 
@@ -35,7 +33,7 @@ def main():
     dtype = jnp.float32
     model = anymal_d_model(dtype=dtype)
     qp = QPSolverParams()
-    backend = "pallas" if jax.default_backend() != "cpu" else "xla"
+    backend = "cached" if jax.default_backend() != "cpu" else "xla"
     carry0 = jax.tree.map(lambda x: jnp.stack([x] * B), wbc.init_carry(dtype))
 
     configs = {
@@ -45,7 +43,7 @@ def main():
     results = {}
     for name, cp in configs.items():
         cache0 = (qpm.make_cache(B, 42, 70, qp, dtype)
-                  if backend == "pallas" else None)
+                  if backend == "cached" else None)
         multi_step, scan_len = make_evolving_step(
             model, cp, qp, B, backend, dtype
         )

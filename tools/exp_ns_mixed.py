@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""On-chip A/B of mixed-precision cold Newton-Schulz (ops/linalg.ns_inverse
-body_prec/tail) on cond-controlled SPD batches.
+"""A/B of mixed-precision cold Newton-Schulz (ops/linalg.ns_inverse
+body_prec/tail) on cond-controlled SPD batches, on the accelerator.
 
 The per-step cold sub-batch NS chains (cold-fix (k, 70, 70), the drop
 round's compacted Schur inverse, the rescue's cold K^-1) are ~60
-serialized matmuls each at "highest" (6-pass bf16) precision.  The early
-iterations only need to contract error ~1 -> the bf16 floor; this tool
+serialized matmuls each at "highest" (full f32) precision.  The early
+iterations only need to contract error ~1 -> the reduced floor; this tool
 measures, per condition-number bucket:
 
   * accuracy: ||I - A W||_inf (max / median over the batch) for
@@ -30,7 +30,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 import jax
 import jax.numpy as jnp
 
-from quadrupedwholebodycontroller_tpu.ops.linalg import full_precision, ns_inverse
+from quadrupedwholebodycontroller.ops.linalg import full_precision, ns_inverse
 
 K = int(os.environ.get("QWBC_NS_K", 512))
 N = 70

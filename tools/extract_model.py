@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Extract a lumped rigid-body model spec (qrm-v1 JSON) from a URDF.
 
-Thin CLI around quadrupedwholebodycontroller_tpu.models.urdf.parse_urdf.
+Thin CLI around quadrupedwholebodycontroller.models.urdf.parse_urdf.
 Default orderings target the ANYmal-D reference
 (/root/reference/urdf/anymal.urdf): actuated joints in the reference
 controller's model order (src/whole_body_controller.cpp:234) and foot frames
@@ -16,7 +16,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from quadrupedwholebodycontroller_tpu.models.urdf import parse_urdf  # noqa: E402
+from quadrupedwholebodycontroller.models.urdf import parse_urdf  # noqa: E402
 
 
 def main():

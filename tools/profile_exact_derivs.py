@@ -3,14 +3,12 @@
 
 ControllerParams.exact_derivatives=True replaces the reference's one-cycle-
 stale finite differences (whole_body_controller.cpp:384-402; control/wbc.py
-wbc_setup FD branch) with jvp-exact Tdot/Jdot along the state flow.  Since
-round 3 the exact mode KEEPS the fused Pallas setup kernel: the kernel runs
-the reference-faithful FD path and wbc._exact_epilogue_batched patches the
-Jdot/Tdot-dependent QP rows with the jvp-exact deltas (VERDICT r2 #8 — the
-round-2 XLA-setup fallback cost +13.6 ms/step).  This tool reports the true
-marginal cost of the mode inside the full compiled step (same in-process
-A/B methodology as profile_deltas.py; SCAN=50 so absolutes are
-dispatch-honest, see CLAUDE.md).
+wbc_setup FD branch) with jvp-exact Tdot/Jdot along the state flow.  The
+exact mode keeps the fused setup (ops/setup_fused): by default the tangents
+run inside it (exact_mode); exact_epilogue=True instead patches the
+Jdot/Tdot-dependent QP rows after the FD setup
+(wbc._exact_epilogue_batched).  This tool reports the marginal cost of each
+inside the full compiled step, in one process (SCAN=50 scan-timed).
 
     python tools/profile_exact_derivs.py [B]
 """
@@ -24,16 +22,16 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from quadrupedwholebodycontroller_tpu.config import (
+from quadrupedwholebodycontroller.config import (
     ControllerParams,
     QPSolverParams,
     QP_NUM_CONSTRAINTS,
     QP_NUM_VARS,
 )
-from quadrupedwholebodycontroller_tpu.control import wbc
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.models.anymal import INITIAL_JOINT_POS
-from quadrupedwholebodycontroller_tpu.ops import qp as qpm
+from quadrupedwholebodycontroller.control import wbc
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.models.anymal import INITIAL_JOINT_POS
+from quadrupedwholebodycontroller.ops import qp as qpm
 
 SCAN = 50
 REPS = 3
@@ -43,7 +41,7 @@ def main():
     B = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
     dtype = jnp.float32
     model = anymal_d_model(dtype=dtype)
-    backend = "pallas" if jax.default_backend() != "cpu" else "xla"
+    backend = "cached" if jax.default_backend() != "cpu" else "xla"
     # rescue off: some frozen perturbed-standing scenarios sit permanently
     # above the threshold, so the rescue would fire EVERY step and swamp
     # the setup-path costs this tool isolates (deltas stay valid either
@@ -70,7 +68,7 @@ def main():
         cache0 = qpm.QPCache.zeros(
             B, QP_NUM_VARS, QP_NUM_CONSTRAINTS, dtype,
             layout=qp.solve_layout if (
-                setup_backend != "xla" and backend == "pallas"
+                setup_backend != "xla" and backend == "cached"
             ) else "major",
         )
         ref = jax.tree.map(
@@ -103,7 +101,7 @@ def main():
               flush=True)
         return ms
 
-    fd_default = timed("fd_pallas_setup", ControllerParams(), "auto")
+    fd_default = timed("fd_fused_setup", ControllerParams(), "auto")
     fd_xla = timed("fd_xla_setup", ControllerParams(), "xla")
     exact = timed(
         "exact_in_kernel", ControllerParams(exact_derivatives=True), "auto"
@@ -115,7 +113,7 @@ def main():
     )
     print(json.dumps({
         "B": B,
-        "fd_pallas_setup_ms": round(fd_default, 3),
+        "fd_fused_setup_ms": round(fd_default, 3),
         "fd_xla_setup_ms": round(fd_xla, 3),
         "exact_in_kernel_ms": round(exact, 3),
         "exact_epilogue_ms": round(exact_epi, 3),

@@ -14,14 +14,14 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from quadrupedwholebodycontroller_tpu.config import NV, ControllerParams
-from quadrupedwholebodycontroller_tpu.control import wbc
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.models.anymal import INITIAL_JOINT_POS
-from quadrupedwholebodycontroller_tpu.ops import centroidal as C
-from quadrupedwholebodycontroller_tpu.ops import dynamics as D
-from quadrupedwholebodycontroller_tpu.ops import kinematics as K
-from quadrupedwholebodycontroller_tpu.ops.linalg import full_precision
+from quadrupedwholebodycontroller.config import NV, ControllerParams
+from quadrupedwholebodycontroller.control import wbc
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.models.anymal import INITIAL_JOINT_POS
+from quadrupedwholebodycontroller.ops import centroidal as C
+from quadrupedwholebodycontroller.ops import dynamics as D
+from quadrupedwholebodycontroller.ops import kinematics as K
+from quadrupedwholebodycontroller.ops.linalg import full_precision
 
 SCAN = 5
 REPS = 3

@@ -20,23 +20,23 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from quadrupedwholebodycontroller_tpu.config import (
+from quadrupedwholebodycontroller.config import (
     ControllerParams,
     PlannerParams,
     QPSolverParams,
     QP_NUM_CONSTRAINTS,
     QP_NUM_VARS,
 )
-from quadrupedwholebodycontroller_tpu.control import wbc
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.models.anymal import INITIAL_JOINT_POS
-from quadrupedwholebodycontroller_tpu.ops import qp as qpm
-from quadrupedwholebodycontroller_tpu.sim import SimParams
-from quadrupedwholebodycontroller_tpu.sim.rollout import (
+from quadrupedwholebodycontroller.control import wbc
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.models.anymal import INITIAL_JOINT_POS
+from quadrupedwholebodycontroller.ops import qp as qpm
+from quadrupedwholebodycontroller.sim import SimParams
+from quadrupedwholebodycontroller.sim.rollout import (
     batched_rollout,
     init_rollout_carry,
 )
-from quadrupedwholebodycontroller_tpu.planner import gait
+from quadrupedwholebodycontroller.planner import gait
 
 CONFIGS = {
     "default": QPSolverParams(),
@@ -87,13 +87,10 @@ CONFIGS = {
     # legacy x-space proximal path (the pre-round-4 default)
     "sigma_prox": QPSolverParams(sigma=1e-6, iterations=50),
     # NS-budget trims under the sigma0 defaults: each warm NS iteration is
-    # ~2 HBM-streamed (B,70,70)/(B,42,42) matmuls, the largest remaining
-    # XLA blocks (tools/profile_breakdown.py round 4)
+    # ~2 HBM-streamed (B,70,70)/(B,42,42) matmuls
     "kinv2": QPSolverParams(ns_warm_iters=2),
-    # round-5 candidates: with the lazy Schur fast path, polish round 2
-    # costs 0.81 ms marginal while refine passes are ~free
-    # (tools/profile_deltas.py) — try buying round-2's accuracy with
-    # refinement instead
+    # with the lazy Schur fast path, polish round 2 costs more than the
+    # refine passes — try buying round-2's accuracy with refinement instead
     "rounds1_refine5": QPSolverParams(polish_rounds=1, polish_refine=5),
     # post-P-free candidates: ADMM iterations are 3 cheap matvecs now and
     # refine=5 absorbs preconditioner error — probe trimming the remaining
@@ -199,7 +196,7 @@ def bench_speed(qp):
     dtype = jnp.float32
     model = anymal_d_model(dtype=dtype)
     cp = ControllerParams()
-    backend = "pallas" if jax.default_backend() != "cpu" else "xla"
+    backend = "cached" if jax.default_backend() != "cpu" else "xla"
     B = BENCH_B
     key = jax.random.PRNGKey(0)
     k1, k2, k3, k4 = jax.random.split(key, 4)
@@ -268,7 +265,7 @@ def rollout_quality(qp):
             model, cp, qp, sp,
             lambda s, cc: gait.planner_step(pp, s, cc),
             ratio, c, x,
-            qp_backend="pallas" if jax.default_backend() != "cpu" else "xla",
+            qp_backend="cached" if jax.default_backend() != "cpu" else "xla",
         )
     )
     t0 = time.perf_counter()

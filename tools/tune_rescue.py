@@ -5,8 +5,7 @@ The rescue fires whenever ANY scenario's relative KKT exceeds the
 threshold, and at B=8192 that happens on a sizable fraction of replay
 steps — so its budget (extra ADMM iterations, polish rounds) sets the
 headline cost.  This tool reruns bench.py's evolving scan for each budget
-in ONE process (the only comparison that resolves <1 ms effects on the
-shared chip, see CLAUDE.md).
+in ONE process (the only comparison that resolves <1 ms effects).
 
     python tools/tune_rescue.py [B]
 """
@@ -21,10 +20,10 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from quadrupedwholebodycontroller_tpu.config import ControllerParams, QPSolverParams
-from quadrupedwholebodycontroller_tpu.control import wbc
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.ops import qp as qpm
+from quadrupedwholebodycontroller.config import ControllerParams, QPSolverParams
+from quadrupedwholebodycontroller.control import wbc
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.ops import qp as qpm
 
 from bench import make_diverse_step, make_evolving_step  # noqa: E402
 
@@ -39,7 +38,7 @@ def main():
     dtype = jnp.float32
     model = anymal_d_model(dtype=dtype)
     cp = ControllerParams()
-    backend = "pallas" if jax.default_backend() != "cpu" else "xla"
+    backend = "cached" if jax.default_backend() != "cpu" else "xla"
 
     base = QPSolverParams()
     rb = lambda it, r, thr=3e-3, k=0, **kw: dataclasses.replace(
@@ -144,9 +143,9 @@ def main():
             base, cond_hoist=0, polish_rounds=1),
         "hoist1_dropoff": dataclasses.replace(
             base, cond_hoist=1, polish_rounds=1),
-        # hoist1 measured 337.5k vs hoist0 360.3k (NEGATIVE — the
-        # hoisted scatter materializes the copy); hoist2 hoists only the
-        # drop round's sinv (no scatter), measured separately
+        # hoist1 measured slower than hoist0 (the hoisted scatter
+        # materializes the copy); hoist2 hoists only the drop round's sinv
+        # (no scatter), measured separately
         "hoist2": dataclasses.replace(base, cond_hoist=2),
         # mixed-precision cold NS chains (ns_cold_prec body, full tail)
         "nsbf16": dataclasses.replace(base, ns_cold_prec="bfloat16"),
@@ -190,7 +189,7 @@ def main():
 
     mk = make_diverse_step if MODE == "diverse" else make_evolving_step
     results = {}
-    from quadrupedwholebodycontroller_tpu.ops import linalg as _linalg
+    from quadrupedwholebodycontroller.ops import linalg as _linalg
     _prec0 = _linalg._MATMUL_PRECISION
     for name, qp in configs.items():
         # gprec_* configs flip the GLOBAL full_precision level for this
@@ -200,7 +199,7 @@ def main():
             name.split("_")[1] if name.startswith("gprec_") else _prec0
         )
         cache0 = (qpm.make_cache(B, 42, 70, qp, dtype)
-                  if backend == "pallas" else None)
+                  if backend == "cached" else None)
         multi_step, scan_len = mk(model, cp, qp, B, backend, dtype)
         carry, cache, ts, kk, cnt = multi_step(carry0, cache0, False)
         jax.block_until_ready(ts)

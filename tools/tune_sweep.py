@@ -17,16 +17,16 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from quadrupedwholebodycontroller_tpu.config import ControllerParams, PlannerParams
-from quadrupedwholebodycontroller_tpu.models import anymal_d_model
-from quadrupedwholebodycontroller_tpu.parallel import (
+from quadrupedwholebodycontroller.config import ControllerParams, PlannerParams
+from quadrupedwholebodycontroller.models import anymal_d_model
+from quadrupedwholebodycontroller.parallel import (
     make_mesh,
     shard_batch,
     sharded_sweep_step,
 )
-from quadrupedwholebodycontroller_tpu.sim import SimParams
-from quadrupedwholebodycontroller_tpu.sim.rollout import init_rollout_carry
-from quadrupedwholebodycontroller_tpu.sim.scenario import Scenario
+from quadrupedwholebodycontroller.sim import SimParams
+from quadrupedwholebodycontroller.sim.rollout import init_rollout_carry
+from quadrupedwholebodycontroller.sim.scenario import Scenario
 
 from tune_qp import CONFIGS  # noqa: E402
 
@@ -48,7 +48,7 @@ def main():
     mesh = make_mesh()
 
     if gait == "trot":
-        from quadrupedwholebodycontroller_tpu.planner import trot as trot_mod
+        from quadrupedwholebodycontroller.planner import trot as trot_mod
 
         carry = init_rollout_carry(
             model, cp, dtype=dtype,
